@@ -1,0 +1,383 @@
+"""Batched multi-query execution engine over the lattice (DESIGN.md
+§Batched Execution).
+
+``coordinated_scan_search`` serves one query at a time: a Python loop walks
+the role's plan and every ``l2_topk`` launch carries a single query row even
+though the kernel is tiled for a (B, d) batch.  This module amortizes the
+lattice traversal across a batch of typed :class:`~repro_torch.core.api.Query`
+objects (``execute_queries`` — the engine behind ``VectorStore.search``):
+
+  1. build each query's plan cover (single-role plan, or the deduped union
+     of per-role plans for multi-role queries) and invert it — for every
+     lattice node (and leftover block), collect the batch rows whose plan
+     touches it;
+  2. scan leftover blocks once per block for all touching rows — or, when
+     the packed leftover shard is selected, score *all* leftovers for
+     the whole batch in one ``l2_topk`` launch — seeding the vectorized
+     per-query top-k;
+  3. visit nodes that are *pure* for a row first (purity judged against the
+     row's multi-role authorized mask; their results need no post-filter and
+     tighten that row's bound fastest), then impure / distant nodes, each
+     node issuing **one** ``l2_topk`` call whose query batch carries a
+     per-query ``bound`` vector (each row's own k-th distance — heterogeneous
+     k is native, not max-k truncation) and a per-query ``role_mask`` vector
+     (the OR of the row's role bits);
+  4. merge every launch's (B', k) result block into the running (B, k)
+     top-k with pure-numpy row operations.  Scoring and merging carry no
+     Python per-query loop; only per-row bookkeeping (stats and the
+     exact-mask post-filter) iterates over rows.
+
+The merge (:class:`BatchTopK`) and the per-block leftover scan run on the
+host in numpy, as in the reference.  With ScoreScan engines on the card,
+each node launch therefore ends in one host synchronisation: its (B', k)
+result is copied back before the next node's bounds can be formed.
+
+Result parity: bound-based skipping is *sound* (a node is only skipped when
+its centroid-radius lower bound proves it cannot improve that row's top-k),
+so the returned (dist, id) sets are identical to per-query coordinated
+search for any visit schedule; only the schedule-dependent skip counters in
+:class:`SearchStats` may differ (see tests/test_batched.py).
+"""
+from __future__ import annotations
+
+from collections import defaultdict
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from .api import Query, SearchResult, SearchStats
+from .queryplan import Plan
+from .store import VectorStore
+
+_INF = np.float32(np.inf)
+
+
+class BatchTopK:
+    """Vectorized per-row bounded top-k over (dist, id) pairs.
+
+    Maintains (B, k) distance/id arrays sorted ascending by (dist, id) per
+    row, with +inf / -1 padding.  Duplicate ids within a row (a vector copied
+    into several lattice nodes) keep their smallest distance, mirroring the
+    ``_TopK`` seen-set of the sequential engine.  ``ks`` optionally gives
+    each row its own k <= k: the buffer is k wide for everyone, but
+    :meth:`kth` reports each row's *own* k-th distance, so bound-based
+    pruning stays as tight as a homogeneous batch at that row's k.
+    """
+
+    def __init__(self, b: int, k: int, ks: Optional[np.ndarray] = None):
+        self.k = k
+        self.ks = (np.full(b, k, dtype=np.int64) if ks is None
+                   else np.minimum(np.asarray(ks, dtype=np.int64), k))
+        self.dists = np.full((b, k), _INF, dtype=np.float32)
+        self.ids = np.full((b, k), -1, dtype=np.int64)
+
+    def kth(self, rows: Optional[np.ndarray] = None) -> np.ndarray:
+        """Current per-row k-th distance (+inf while a row holds < its k)."""
+        if rows is None:
+            rows = np.arange(len(self.dists))
+        return self.dists[rows, self.ks[rows] - 1].copy()
+
+    def push_rows(self, rows: np.ndarray, new_d: np.ndarray,
+                  new_i: np.ndarray) -> None:
+        """Merge a (m, k') candidate block into rows ``rows`` of the buffer."""
+        if not len(rows):
+            return
+        d = np.concatenate([self.dists[rows], new_d.astype(np.float32)], 1)
+        i = np.concatenate([self.ids[rows], new_i.astype(np.int64)], 1)
+        d = np.where(i < 0, _INF, d)
+        # dedup: row-sort by (id, dist) so copies sit adjacent, min dist first
+        order = np.argsort(d, axis=1, kind="stable")
+        d = np.take_along_axis(d, order, 1)
+        i = np.take_along_axis(i, order, 1)
+        order = np.argsort(i, axis=1, kind="stable")
+        d = np.take_along_axis(d, order, 1)
+        i = np.take_along_axis(i, order, 1)
+        dup = (i[:, 1:] == i[:, :-1]) & (i[:, 1:] >= 0)
+        d[:, 1:][dup] = _INF
+        i[:, 1:][dup] = -1
+        # final order (dist, id): stable sort by secondary key, then primary
+        order = np.argsort(np.where(i < 0, np.iinfo(np.int64).max, i),
+                           axis=1, kind="stable")
+        d = np.take_along_axis(d, order, 1)
+        i = np.take_along_axis(i, order, 1)
+        order = np.argsort(d, axis=1, kind="stable")
+        self.dists[rows] = np.take_along_axis(d, order, 1)[:, :self.k]
+        self.ids[rows] = np.take_along_axis(i, order, 1)[:, :self.k]
+
+    def items(self) -> List[List[Tuple[float, int]]]:
+        """Per-row sorted (dist, id) lists, padding dropped — the same shape
+        ``coordinated_scan_search`` returns for each query."""
+        out = []
+        for drow, irow in zip(self.dists, self.ids):
+            keep = irow >= 0
+            out.append([(float(dd), int(ii))
+                        for dd, ii in zip(drow[keep], irow[keep])])
+        return out
+
+
+def _scan_leftovers_batched(store: VectorStore, queries: np.ndarray,
+                            plans: Sequence[Plan], topk: BatchTopK,
+                            stats_rows: Sequence[SearchStats],
+                            pred_masks: Optional[Sequence] = None) -> None:
+    """One pass per leftover block shared by every batch row touching it."""
+    block_rows: Dict[int, List[int]] = defaultdict(list)
+    for qi, plan in enumerate(plans):
+        # dict.fromkeys: each (row, block) visit counted once even when a
+        # plan names a block twice (e.g. assembled from overlapping plans)
+        for b in dict.fromkeys(plan.leftover_blocks):
+            block_rows[b].append(qi)
+    for b, rows in block_rows.items():
+        vecs = store.leftover_vectors.get(b)
+        if vecs is None or not len(vecs):
+            continue
+        ids = store.leftover_ids[b]
+        # same diff-based form as the sequential scan (exact fp parity)
+        diff = vecs[None, :, :] - queries[rows][:, None, :]
+        d = np.einsum("mnd,mnd->mn", diff, diff)
+        if pred_masks is not None:
+            # a filtered row drops leftover vectors failing its predicate
+            for j, qi in enumerate(rows):
+                pm = pred_masks[qi]
+                if pm is not None:
+                    d[j] = np.where(pm[ids], d[j], np.inf)
+        for qi in rows:
+            st = stats_rows[qi]
+            st.leftover_vectors_scanned += len(vecs)
+            st.data_touched += len(vecs)
+            st.data_authorized_touched += len(vecs)
+        rows = np.asarray(rows)
+        m = min(topk.k, d.shape[1])
+        part = np.argpartition(d, m - 1, axis=1)[:, :m] if m < d.shape[1] \
+            else np.broadcast_to(np.arange(d.shape[1]), d.shape).copy()
+        sel_d = np.take_along_axis(d, part, 1)
+        sel_i = ids[part].astype(np.int64)
+        # predicate-pruned slots carry +inf — drop their ids so they never
+        # surface through the merge
+        sel_i = np.where(np.isinf(sel_d), np.int64(-1), sel_i)
+        topk.push_rows(rows, sel_d, sel_i)
+
+
+def _filter_unauthorized(d: np.ndarray, ids: np.ndarray, rows: np.ndarray,
+                         row_masks: Sequence[np.ndarray]) -> None:
+    """In-place exact-mask post-filter on kernel results (the authorization
+    ground truth; the in-kernel word masks are exact too — DESIGN.md §Role
+    Masks — this is defense in depth on impure visits).  For a multi-role
+    row the mask is the authorized *union*."""
+    for j, qi in enumerate(rows):
+        ok = (ids[j] >= 0) & row_masks[qi][np.maximum(ids[j], 0)]
+        d[j] = np.where(ok, d[j], _INF)
+        ids[j] = np.where(ok, ids[j], -1)
+
+
+def _packed_leftover_rows(store: VectorStore, plans: Sequence[Plan],
+                          stats_rows: Sequence[SearchStats]) -> np.ndarray:
+    """Rows whose plan touches leftover blocks, with the logical per-(row,
+    plan-block) stats accounted, for the packed path below.  Returns an
+    int row-index array (possibly empty)."""
+    rows: List[int] = []
+    for qi, plan in enumerate(plans):
+        blocks = dict.fromkeys(plan.leftover_blocks)
+        if not blocks:
+            continue
+        rows.append(qi)
+        st = stats_rows[qi]
+        for b in blocks:
+            m = len(store.leftover_vectors.get(b, ()))
+            st.leftover_vectors_scanned += m
+            st.data_touched += m
+            st.data_authorized_touched += m
+    return np.asarray(rows, dtype=np.int64)
+
+
+def _scan_leftovers_packed(store: VectorStore, queries: np.ndarray,
+                           plans: Sequence[Plan],
+                           row_masks: Sequence[np.ndarray],
+                           role_bits: np.ndarray, topk: BatchTopK,
+                           stats_rows: Sequence[SearchStats],
+                           shard,
+                           pred_rows: Optional[Tuple[np.ndarray, np.ndarray]]
+                           = None) -> None:
+    """Single ``l2_topk`` launch over the packed leftover shard for every
+    row whose plan has leftover blocks (DESIGN.md §Continuous Batching).
+
+    The shard's per-vector auth bits carry each block's role combination, so
+    each row's in-kernel role filter admits exactly its authorized leftover
+    vectors (the OR of the row's role bits for multi-role queries).  The
+    kernel may also surface authorized leftover blocks *not* in the row's
+    plan — those blocks are covered by plan nodes (plan cover property), so
+    the same vectors arrive via the node waves and the merged top-k is
+    unchanged.  Stats stay logical and schedule-independent: each
+    (row, plan-block) visit is accounted once, exactly like the per-block
+    scan path, regardless of what the shard physically touches.
+    """
+    rows = _packed_leftover_rows(store, plans, stats_rows)
+    if not len(rows):
+        return
+    pkw = {} if pred_rows is None else dict(require=pred_rows[0][rows],
+                                            forbid=pred_rows[1][rows])
+    d, ids = shard.search_masked_batch(queries[rows], topk.k,
+                                       role_bits[rows], **pkw)
+    # defense in depth: the shard's word masks are exact at any n_roles
+    # (multi-word past 32 roles), but the bool mask stays the ground truth
+    _filter_unauthorized(d, ids, rows, row_masks)
+    topk.push_rows(rows, d, ids)
+
+
+def _prepare_batch(store: VectorStore, queries: Sequence[Query]):
+    """Batch setup for the batched engine: stacked query
+    rows, per-row k (heterogeneous-k native), per-row plan covers, exact
+    authorized-union masks, in-kernel role-bit rows, fresh per-row stats,
+    per-row (require, forbid) predicate word rows (``None`` when no query is
+    filtered — the exact P=0 kernel path), and per-row host-side predicate
+    pass masks for the engine-independent post-filters.  Returns ``(qs, ks,
+    kmax, role_sets, plans, row_masks, role_bits, stats_rows, pred_rows,
+    pred_masks)``."""
+    b = len(queries)
+    qs = np.ascontiguousarray(
+        np.stack([q.vector for q in queries]), dtype=np.float32)
+    ks = np.asarray([q.k for q in queries], dtype=np.int64)
+    kmax = int(ks.max())
+    role_sets = [q.roles for q in queries]
+    plans = [store.plan_for_roles(t) for t in role_sets]
+    mask_cache: Dict[Tuple[int, ...], np.ndarray] = {}
+    for t in role_sets:
+        if t not in mask_cache:
+            mask_cache[t] = (store.authorized_mask(t[0]) if len(t) == 1
+                             else store.authorized_mask_multi(t))
+    row_masks = [mask_cache[t] for t in role_sets]
+    # (B,) uint32 single-word rows, or (B, W) packed word rows past 32 roles
+    # (exact either way — no role aliasing); row selection `role_bits[rows]`
+    # works identically for both layouts
+    role_bits = store.role_mask_rows(role_sets)
+    stats_rows = [SearchStats() for _ in range(b)]
+    pred_rows = store.predicate_rows(queries)
+    pred_masks: Optional[List[Optional[np.ndarray]]] = None
+    if pred_rows is not None:
+        pmask_cache: Dict = {}
+        pred_masks = []
+        for q in queries:
+            if not q.where:
+                pred_masks.append(None)
+                continue
+            if q.where not in pmask_cache:
+                rf = store.compile_where(q.where)
+                pmask_cache[q.where] = store.predicate_mask(rf[0], rf[1])
+            pred_masks.append(pmask_cache[q.where])
+    return (qs, ks, kmax, role_sets, plans, row_masks, role_bits, stats_rows,
+            pred_rows, pred_masks)
+
+
+def _classify_waves(store: VectorStore, plans: Sequence[Plan],
+                    role_sets: Sequence[Tuple[int, ...]],
+                    row_masks: Sequence[np.ndarray],
+                    stats_rows: Sequence[SearchStats]):
+    """Invert plans into per-node row groups split by per-(row, node) purity
+    against each row's (multi-role) authorized mask.  Returns
+    ``(pure_rows, impure_rows, sizes_cache)`` where ``sizes_cache`` maps
+    ``(node key, role set) -> (total, auth)``."""
+    pure_rows: Dict = defaultdict(list)
+    impure_rows: Dict = defaultdict(list)
+    sizes_cache: Dict = {}           # (key, role set) -> (total, auth)
+    for qi, (plan, t) in enumerate(zip(plans, role_sets)):
+        for key in plan.nodes:
+            if key not in store.engines:
+                continue
+            if (key, t) not in sizes_cache:
+                sizes_cache[(key, t)] = store.node_total_and_auth(
+                    key, row_masks[qi])
+            total, auth = sizes_cache[(key, t)]
+            (pure_rows if auth == total else impure_rows)[key].append(qi)
+            stats_rows[qi].indices_visited += 1
+    return pure_rows, impure_rows, sizes_cache
+
+
+def execute_queries(store: VectorStore, queries: Sequence[Query], *,
+                    packed: Optional[bool] = None,
+                    min_packed_batch: int = 1) -> List[SearchResult]:
+    """Coordinated search for a batch of typed queries (Alg. 7,
+    batch-amortized) — the batched arm of ``VectorStore.search``.  Requires
+    every node engine to be a :class:`~repro_torch.core.api.BatchEngine`.
+
+    Heterogeneous ``k`` is native: the top-k buffer is max-k wide but each
+    row's pruning bound uses its own k-th distance, and each result is cut
+    to its query's k.  Multi-role rows carry the OR of their role bits
+    in-kernel and are post-filtered against the exact authorized-union mask.
+
+    ``packed`` selects the leftover strategy: ``True`` scans the packed
+    leftover shard (built on demand) in one kernel launch, ``False`` scans
+    per block, ``None`` (default) uses the shard iff the store already has
+    one (``store.pack_leftover_shard()``) *and* the batch has at least
+    ``min_packed_batch`` rows.
+
+    Returns one :class:`SearchResult` per query — hits identical to
+    ``coordinated_scan_search(store, q.vector, q.roles, q.k)``.
+    """
+    b = len(queries)
+    (qs, ks, kmax, role_sets, plans, row_masks, role_bits,
+     stats_rows, pred_rows, pred_masks) = _prepare_batch(store, queries)
+
+    topk = BatchTopK(b, kmax, ks=ks)
+    if packed is True:
+        shard = store.pack_leftover_shard()
+    elif packed is None and b >= min_packed_batch:
+        shard = store.leftover_shard
+    else:
+        shard = None
+    path = "batched+packed" if shard is not None else "batched"
+    if shard is not None:
+        _scan_leftovers_packed(store, qs, plans, row_masks, role_bits,
+                               topk, stats_rows, shard, pred_rows=pred_rows)
+    else:
+        _scan_leftovers_batched(store, qs, plans, topk, stats_rows,
+                                pred_masks=pred_masks)
+
+    # invert plans: node -> rows, split per (row, node) purity against the
+    # row's (multi-role) authorized mask
+    pure_rows, impure_rows, sizes_cache = _classify_waves(
+        store, plans, role_sets, row_masks, stats_rows)
+
+    def _wave(groups: Dict, impure: bool) -> None:
+        # nearest-first across the batch: tightening close rows' bounds early
+        # maximizes later skips, like the per-query ascending-lb order
+        keyed = []
+        for key, rows in groups.items():
+            eng = store.engines[key]
+            rows = np.asarray(rows)
+            lbs = eng.lower_bounds(qs[rows])
+            keyed.append((float(lbs.min()), key, rows, lbs))
+        keyed.sort(key=lambda t: t[0])
+        for _, key, rows, lbs in keyed:
+            eng = store.engines[key]
+            for qi in rows:
+                st = stats_rows[qi]
+                if impure:
+                    total, auth = sizes_cache[(key, role_sets[qi])]
+                    st.impure_visits += 1
+                else:
+                    total = auth = len(eng)
+                st.data_touched += total
+                st.data_authorized_touched += auth
+            kth = topk.kth(rows)
+            active = lbs <= kth
+            for qi in rows[~active]:
+                stats_rows[qi].phase2_skipped += 1
+                if not impure:
+                    stats_rows[qi].impure_visits += 1  # bound-skip opportunity
+            if not active.any():
+                continue
+            act = rows[active]
+            pkw = {} if pred_rows is None else dict(
+                require=pred_rows[0][act], forbid=pred_rows[1][act])
+            d, ids = eng.search_masked_batch(qs[act], kmax,
+                                             role_bits[act],
+                                             bounds=kth[active], **pkw)
+            if impure:
+                _filter_unauthorized(d, ids, act, row_masks)
+            topk.push_rows(act, d, ids)
+
+    _wave(pure_rows, impure=False)
+    _wave(impure_rows, impure=True)
+    items = topk.items()
+    return [SearchResult(hits=items[i][:int(ks[i])], stats=stats_rows[i],
+                         path=path)
+            for i in range(b)]
