@@ -7,32 +7,48 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases, each fatal on failure:
   1. device: the card's name and power limit, the CUDA version, TF32 off;
-  2. build the Hopper ``l2_topk`` kernel from ``csrc/`` into ``build/`` and
-     hold it against its plain PyTorch version on the card, over shapes,
-     auth-word widths, predicate widths, bounds and sparse authorization;
-  3. the main path at SIFT1M shape (1,000,000 x 128 float32, 32 roles):
-     EffVEDA lattice, ScoreScan engines on the card, packed leftovers,
-     ``VectorStore.search`` over batches of 64 queries; every hit held to
-     the authorized brute-force oracle (the plain version over the full
-     data on the card); the kernel's launch count must equal the node and
-     shard launches the waves issued;
-  4. a reduced second pass (200,000 rows, 64 roles = 2 auth words, a
-     one-word predicate plane, a ``where`` clause on half the queries);
-  5. kernel, plain-version and bound times at the main path's shapes
-     (device time per call from torch.profiler, and the time between CUDA
-     events around back-to-back calls), and the device time per batch by
-     kernel (torch.profiler).
+  2. build the Hopper kernels (``l2_topk``, ``flash_attention``) from their
+     ``csrc/`` into ``build/``, one nvcc each, started together;
+  3. hold ``l2_topk`` against its plain PyTorch version on the card, over
+     shapes, auth-word widths, predicate widths, bounds and sparse
+     authorization; hold ``flash_attention`` against its plain version
+     over causal / kv-length / offset / GQA cases and the RAG path's
+     prefill and decode shapes, in f32 and bf16;
+  4. the retrieval main path at SIFT1M shape (1,000,000 x 128 float32, 32
+     roles): EffVEDA lattice, ScoreScan engines on the card, packed
+     leftovers, ``VectorStore.search`` over batches of 64 queries; every hit
+     held to the authorized brute-force oracle (the plain version over the
+     full data on the card); the kernel's launch count must equal the node
+     and shard launches the waves issued;
+  5. RAG serving at full width on that store: SmolLM-360M in bf16 with
+     random weights, 16 requests, k = 10 passages of 100 tokens (a
+     1,001-token prompt), 32 greedy decode tokens through
+     ``RAGServer.serve_batch``; every passage authorized for its role and
+     equal to the oracle's; the flash kernel launched in every layer of
+     prefill and of each decode step (32 x 33); the device time by kernel;
+  6. the same model in f32: prefill plus 4 teacher-forced decode steps with
+     the kernel and with the plain version, logits within rtol 1e-3;
+  7. a reduced second retrieval pass (200,000 rows, 64 roles = 2 auth
+     words, a one-word predicate plane, a ``where`` clause on half the
+     queries);
+  8. kernel, plain-version, library and bound times at the main paths'
+     shapes (device time per call from torch.profiler, and the time between
+     CUDA events around back-to-back calls).
 
-It prints one JSON line per phase, the kernel table line, and last the
-device record.  It imports nothing of JAX or of the reference package.
+It prints one JSON line per phase, the kernel table line, the card line,
+and last the device record.  It imports nothing of JAX or of the reference
+package.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
 import time
 from collections import defaultdict
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -45,6 +61,13 @@ K = 10
 BATCH = 64
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
+ARCH = "smollm-360m"
+RAG_REQUESTS = 16
+RAG_K = 10
+PASSAGE_TOKENS = 100           # prompt = 10 x 100 + 1 sentinel = 1,001
+DECODE_TOKENS = 32
+PROMPT = RAG_K * PASSAGE_TOKENS + 1
+FLASH_TOL = dict(rtol=2e-4, atol=2e-5)
 SIFT_SKEW = dict(block_zipf=(1.0, 1.5), perm_zipf=(2.0, 1.5))
 
 
@@ -101,6 +124,56 @@ def kernel_bound(b, n, d, k, w, p):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def flash_bound(b, sq, hq, hkv, hd, causal, q_offset, kv_len, in_bytes):
+    """Least time (ms) for one attention call: q and the kv_len positions
+    of k and v read once, the f32 output written once, over HBM; the 4*hd
+    float32 operations per valid (row, column) pair of each query head
+    (Q.K^T and P.V) over the float32 rate, counting only the pairs these
+    offsets and lengths leave valid."""
+    rows = np.arange(sq)
+    seen = np.minimum(kv_len, rows + q_offset + 1) if causal else \
+        np.full(sq, kv_len)
+    pairs = float(np.clip(seen, 0, None).sum())
+    nbytes = in_bytes * (b * sq * hq * hd + 2 * b * kv_len * hkv * hd)
+    nbytes += 4 * b * sq * hq * hd
+    flops = 4.0 * hd * hq * b * pairs
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def build_kernels():
+    """Build every kernel library at once (one nvcc each, in threads) and
+    report nvcc's register and spill lines for each."""
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.l2_topk import kernel as l2_kernel
+    libs = {"l2_topk": l2_kernel.LIBRARY,
+            "flash_attention": flash_kernel.LIBRARY}
+
+    def timed(lib):
+        t0 = time.perf_counter()
+        path = lib.build()
+        return path, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        futures = {name: pool.submit(timed, lib)
+                   for name, lib in libs.items()}
+        built = {name: f.result() for name, f in futures.items()}
+    for name, (path, seconds) in built.items():
+        ptxas = [ln.strip() for ln in libs[name].build_log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        emit("build_kernel", kernel=name,
+             library=str(path.relative_to(ROOT)), seconds=seconds,
+             max_registers=max((int(ln.split("Used ")[1].split()[0])
+                                for ln in ptxas if "Used " in ln),
+                               default=None),
+             stack_and_spill_bytes=sum(int(w) for ln in ptxas
+                                       if "spill" in ln
+                                       for w in ln.split() if w.isdigit()))
+    emit("build_all", seconds=time.perf_counter() - t0)
 
 
 # --------------------------------------------------------------- phase 2
@@ -192,6 +265,68 @@ def check_kernel_against_plain(rng) -> float:
              max_abs_err=max(errs), near_tie_swaps=swaps,
              rule="rtol 1e-5, atol 1e-5*(|q|^2+max|v|^2); ids equal "
                   "except <=1 near-tie swap per query")
+    return worst
+
+
+def flash_inputs(rng, b, hq, hkv, sq, sk, hd, dtype):
+    """q (B, Sq, Hq, hd), k and v (B, Sk, Hkv, hd) of unit normals, on the
+    card in ``dtype``."""
+    return tuple(torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to("cuda", dtype)
+        for shape in ((b, sq, hq, hd), (b, sk, hkv, hd), (b, sk, hkv, hd)))
+
+
+# (B, Hq, Hkv, Sq, Sk, hd, causal, q_offset, kv_len)
+FLASH_CASES = {
+    "aligned_gqa": (2, 4, 2, 128, 128, 32, True, 0, 128),
+    "padding": (1, 2, 2, 100, 100, 64, True, 0, 100),
+    "decode_kv_len": (1, 4, 1, 1, 256, 32, False, 255, 200),
+    "offset": (2, 2, 2, 64, 192, 16, True, 128, 192),
+    "full_tile": (1, 8, 8, 256, 256, 128, True, 0, 256),
+    "unaligned": (1, 3, 1, 37, 75, 20, True, 38, 75),
+    "prefill_into_cache": (1, 3, 1, 33, 41, 64, True, 0, 33),
+    "chunk_at_offset": (2, 6, 2, 20, 80, 16, True, 30, 50),
+    "nothing_valid": (2, 15, 5, 1, 8, 64, True, 0, 0),
+    "rag_prefill": (RAG_REQUESTS, 15, 5, PROMPT, PROMPT + DECODE_TOKENS, 64,
+                    True, 0, PROMPT),
+    "rag_first_decode": (RAG_REQUESTS, 15, 5, 1, PROMPT + DECODE_TOKENS, 64,
+                         True, PROMPT, PROMPT + 1),
+    "rag_last_decode": (RAG_REQUESTS, 15, 5, 1, PROMPT + DECODE_TOKENS, 64,
+                        True, PROMPT + DECODE_TOKENS - 1,
+                        PROMPT + DECODE_TOKENS),
+}
+
+
+def check_flash_against_plain(rng) -> float:
+    """The kernel against its plain version on the same inputs, f32 and
+    bf16 (the same bf16 values on both sides, f32 math in both): rtol 2e-4,
+    atol 2e-5, the reference's own kernel test tolerance."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref, ops
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        errs = {}
+        for name, case in FLASH_CASES.items():
+            b, hq, hkv, sq, sk, hd, causal, off, kv_len = case
+            q, k, v = flash_inputs(rng, b, hq, hkv, sq, sk, hd, dtype)
+            before = ops.launches
+            out = ops.flash_attention(q, k, v, causal=causal, q_offset=off,
+                                      kv_len=kv_len)
+            torch.cuda.synchronize()
+            assert ops.launches == before + 1, "kernel not launched"
+            ref = flash_attention_ref(q, k, v, causal=causal, q_offset=off,
+                                      kv_len=kv_len)
+            assert out.dtype == torch.float32 and out.shape == ref.shape
+            assert torch.isfinite(out).all(), name
+            torch.testing.assert_close(out, ref, **FLASH_TOL)
+            if kv_len == 0:
+                assert (out == 0).all(), name
+            errs[name] = (out - ref).abs().max().item()
+            del q, k, v, out, ref
+        worst = max(worst, max(errs.values()))
+        emit("flash_vs_plain", dtype=str(dtype).split(".")[-1],
+             cases=len(errs), ok=True, max_abs_err=max(errs.values()),
+             max_abs_err_by_case=errs,
+             rule="rtol 2e-4, atol 2e-5 (elementwise, f32 output)")
     return worst
 
 
@@ -408,12 +543,249 @@ def time_kernel(store, queries, label):
     return out
 
 
+# ------------------------------------------------------------ phases 5, 6
+def tensor_bytes(tree) -> int:
+    """Bytes of every tensor in a nested dict / list of tensors."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    items = tree.values() if isinstance(tree, dict) else tree
+    return sum(tensor_bytes(t) for t in items)
+
+
+def kernel_family(name: str) -> str:
+    for key, family in (("flash_attention", "flash_attention"),
+                        ("l2_topk", "l2_topk"), ("Memcpy", "memcpy")):
+        if key in name:
+            return family
+    if any(key in name.lower() for key in ("gemm", "xmma", "nvjet",
+                                            "cutlass")):
+        return "matmul"
+    return "other"
+
+
+def rag_phase(ds, store):
+    """RAG serving at full width on the main path's store: one warm-up
+    batch, then the counts set to 0, one measured ``serve_batch``, the
+    counts read; then one profiled batch for the device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.core import Query
+    from repro_torch.core.metrics import norm_scale, recall_at_k, \
+        topk_agreement
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.l2_topk import ops as l2_ops
+    from repro_torch.launch.serve import RAGServer
+    from repro_torch.models import init_params
+    cfg = get_config(ARCH)
+    assert cfg.dtype == "bfloat16"
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    server = RAGServer(cfg=cfg, params=params, store=store,
+                       passage_tokens=PASSAGE_TOKENS, device="cuda")
+    qs = ds.queries[:RAG_REQUESTS]
+    roles = [int(r) for r in ds.query_roles[:RAG_REQUESTS]]
+    server.serve_batch(qs, roles, k=RAG_K, decode_tokens=2)     # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    l2_ops.launches = flash_ops.launches = 0
+    out = server.serve_batch(qs, roles, k=RAG_K,
+                             decode_tokens=DECODE_TOKENS)
+    flash_launches, l2_launches = flash_ops.launches, l2_ops.launches
+    peak_bytes = torch.cuda.max_memory_allocated() - base_bytes
+    assert flash_launches == cfg.n_layers * (1 + DECODE_TOKENS), \
+        flash_launches
+    assert l2_launches > 0
+
+    # every passage authorized, and the oracle's authorized top-k
+    hits = server.retrieve_batch(qs, roles, RAG_K)
+    assert out["retrieved"] == [[i for _, i in h] for h in hits]
+    for r, pids in zip(roles, out["retrieved"]):
+        assert len(pids) == RAG_K
+        assert ds.policy.authorized_mask(r)[pids].all(), "leak!"
+        assert store.authorized_mask(r)[pids].all(), "leak!"
+    data_dev = torch.from_numpy(ds.vectors).cuda()
+    od, oi = oracle(store, data_dev, torch.sum(data_dev * data_dev, dim=1),
+                    [Query(vector=q, roles=(r,), k=RAG_K)
+                     for q, r in zip(qs, roles)], RAG_K)
+    del data_dev
+    sd = np.array([[d for d, _ in h] for h in hits], np.float32)
+    si = np.array([[i for _, i in h] for h in hits], np.int64)
+    agree = topk_agreement(sd, si, od, oi, norm_scale(qs, ds.vectors))
+    assert agree["ok"], agree
+    tokens = out["tokens"]
+    assert tokens.shape == (RAG_REQUESTS, DECODE_TOKENS)
+    assert ((tokens >= 0) & (tokens < cfg.vocab_size)).all()
+
+    kv_bytes = (2 * cfg.n_layers * RAG_REQUESTS * (PROMPT + DECODE_TOKENS)
+                * cfg.n_kv_heads * cfg.hd * 2)
+    n_tok = RAG_REQUESTS * DECODE_TOKENS
+    result = dict(
+        arch=ARCH, dtype=cfg.dtype, n_layers=cfg.n_layers,
+        requests=RAG_REQUESTS, k=RAG_K, prompt_tokens=PROMPT,
+        decode_tokens=DECODE_TOKENS, ok=True,
+        retrieval_ms=out["t_retrieval_s"] * 1e3,
+        prefill_ms=out["t_prefill_s"] * 1e3,
+        decode_ms_per_token=out["t_decode_s"] * 1e3 / DECODE_TOKENS,
+        decode_tokens_per_s=n_tok / out["t_decode_s"],
+        prefill_tokens_per_s=RAG_REQUESTS * PROMPT / out["t_prefill_s"],
+        serve_ms=(out["t_retrieval_s"] + out["t_generate_s"]) * 1e3,
+        flash_launches=flash_launches, l2_topk_launches=l2_launches,
+        passages_authorized=True,
+        recall_at_10=float(np.mean([recall_at_k(si[n], oi[n], RAG_K)
+                                    for n in range(RAG_REQUESTS)])),
+        max_abs_dist_err=agree["max_abs_err"],
+        near_tie_swaps=int(agree["swaps"].sum()),
+        param_bytes=tensor_bytes(params), kv_cache_bytes=kv_bytes,
+        peak_bytes_above_store_and_params=peak_bytes,
+        init_params_s=init_s)
+    emit("rag_serve", **result)
+
+    # device time by kernel: a serve with no decode step (retrieval and
+    # prefill), then the full serve; the decode steps are the difference
+    device = {}
+    for label, steps in (("prefill", 0), ("serve", DECODE_TOKENS)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            server.serve_batch(qs, roles, k=RAG_K, decode_tokens=steps)
+            torch.cuda.synchronize()
+        by_family = defaultdict(float)
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_family[kernel_family(e.key)] += \
+                    e.self_device_time_total / 1e3
+        assert sum(by_family.values()) > 0, "the profiler saw no device time"
+        device[label] = by_family
+    decode = {name: (device["serve"][name] - device["prefill"][name])
+              / DECODE_TOKENS for name in device["serve"]}
+    total = sum(device["serve"].values())
+    prefill_total = sum(device["prefill"].values())
+    decode_total = sum(decode.values())
+    host_ms = result["serve_ms"]
+    emit("rag_breakdown", device_ms=total,
+         device_ms_by_kernel=dict(device["serve"]),
+         host_ms_unprofiled=host_ms, device_busy_share=total / host_ms,
+         prefill_device_ms_by_kernel=dict(device["prefill"]),
+         prefill_device_ms=prefill_total,
+         prefill_device_busy_share=prefill_total / (
+             result["retrieval_ms"] + result["prefill_ms"]),
+         decode_device_ms_per_token_by_kernel=decode,
+         decode_device_ms_per_token=decode_total,
+         decode_device_busy_share=decode_total
+         / result["decode_ms_per_token"],
+         flash_decode_device_ms_per_launch=decode["flash_attention"]
+         / cfg.n_layers)
+    del server, params
+    torch.cuda.empty_cache()
+    return result
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Route the model's attention through the plain version, for the
+    comparison run of ``f32_check`` only."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref, ops
+    kernel_fn = ops.flash_attention
+    ops.flash_attention = flash_attention_ref
+    try:
+        yield
+    finally:
+        ops.flash_attention = kernel_fn
+
+
+def f32_check(steps=4):
+    """SmolLM-360M at full width in f32: prefill a 1,001-token prompt for 16
+    requests, then ``steps`` teacher-forced decode steps, once with the
+    kernel and once with the plain version.  Logits hold to rtol 1e-3,
+    atol 1e-3: both runs share every matmul, and the attention sums differ
+    only in order (about 1e-6 relative each), which 32 layers amplify."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import decode_fn, init_cache, init_params, \
+        prefill_fn
+    cfg = dataclasses.replace(get_config(ARCH), dtype="float32")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(1),
+                         "cuda")
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (RAG_REQUESTS, PROMPT + steps))).cuda()
+
+    def run():
+        cache = init_cache(cfg, RAG_REQUESTS, PROMPT + steps, device="cuda")
+        logits, cache = prefill_fn(params, cfg, toks[:, :PROMPT], cache)
+        out = [logits]
+        for t in range(steps):
+            logits, cache = decode_fn(params, cfg,
+                                      toks[:, PROMPT + t:PROMPT + t + 1],
+                                      cache, PROMPT + t)
+            out.append(logits)
+        return torch.stack(out)
+
+    before = ops.launches
+    kern = run()
+    torch.cuda.synchronize()
+    assert ops.launches == before + cfg.n_layers * (1 + steps)
+    with plain_attention():
+        plain = run()
+    torch.cuda.synchronize()
+    assert ops.launches == before + cfg.n_layers * (1 + steps)
+    assert torch.isfinite(kern).all() and kern.dtype == torch.float32
+    torch.testing.assert_close(kern, plain, rtol=1e-3, atol=1e-3)
+    err = (kern - plain).abs().max().item()
+    same_argmax = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    emit("f32_check", arch=ARCH, dtype="float32", requests=RAG_REQUESTS,
+         prompt_tokens=PROMPT, decode_steps=steps, ok=True,
+         max_abs_err=err, logit_scale=plain.abs().max().item(),
+         argmax_agreement=same_argmax, rule="rtol 1e-3, atol 1e-3")
+    del params
+    torch.cuda.empty_cache()
+    return err
+
+
+# --------------------------------------------------------------- phase 8
+def time_flash(rng, label, b, sq, sk, q_offset, kv_len):
+    """Kernel, plain-version, SDPA and bound times for one attention call
+    at SmolLM-360M's heads in bf16 (``ms`` etc. are device time per call
+    from torch.profiler; ``call_ms`` the time between CUDA events)."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref, ops
+    from repro_torch.kernels.flash_attention.ref import valid_mask
+    hq, hkv, hd = 15, 5, 64
+    q, k, v = flash_inputs(rng, b, hq, hkv, sq, sk, hd, torch.bfloat16)
+    kw = dict(causal=True, q_offset=q_offset, kv_len=kv_len)
+    mask = valid_mask(sq, sk, device="cuda", **kw)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+    def kern():
+        return ops.flash_attention(q, k, v, **kw)
+
+    def plain():
+        return flash_attention_ref(q, k, v, **kw)
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    ref = plain()
+    err = (kern() - ref).abs().max().item()
+    lib_err = (library().transpose(1, 2).float() - ref).abs().max().item()
+    out = dict(batch=b, sq=sq, sk=sk, heads=f"{hq}/{hkv}", hd=hd,
+               dtype="bfloat16", q_offset=q_offset, kv_len=kv_len,
+               ms=device_ms(kern, 20), plain_ms=device_ms(plain, 3),
+               library_ms=device_ms(library, 20),
+               call_ms=cuda_ms(kern, 20), max_abs_err=err,
+               library_max_abs_err=lib_err)
+    out["bound_ms"], out["bound_by"] = flash_bound(
+        b, sq, hq, hkv, hd, True, q_offset, kv_len, 2)
+    emit("timing_flash", shape=label, **out)
+    del q, k, v, qt, kt, vt, mask
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    from repro_torch.kernels.l2_topk import kernel
-
     t_start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
@@ -423,33 +795,33 @@ def main() -> int:
          cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), tf32=False)
 
-    t0 = time.perf_counter()
-    lib = kernel.build()
-    ptxas = [ln.strip() for ln in kernel.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit("build_kernel", library=str(lib.relative_to(ROOT)),
-         seconds=time.perf_counter() - t0,
-         max_registers=max((int(ln.split("Used ")[1].split()[0])
-                            for ln in ptxas if "Used " in ln), default=None),
-         stack_and_spill_bytes=sum(int(w) for ln in ptxas if "spill" in ln
-                                   for w in ln.split() if w.isdigit()))
-
+    build_kernels()
     worst = check_kernel_against_plain(np.random.default_rng(0))
+    flash_worst = check_flash_against_plain(np.random.default_rng(1))
 
     ds, store, queries = build_store(1_000_000, 32, 512, pred=False)
     launches, ms_per_batch = drive(store, queries, ds.vectors, "main_path")
     breakdown(store, queries, ms_per_batch)
     node_t = time_kernel(store, queries, "largest_node")
     shard_t = time_kernel(store, queries, "packed_shard")
+    rag = rag_phase(ds, store)
     del ds, store, queries
     torch.cuda.empty_cache()
+
+    f32_err = f32_check()
+    rng = np.random.default_rng(2)
+    prefill_t = time_flash(rng, "rag_prefill", RAG_REQUESTS, PROMPT,
+                           PROMPT + DECODE_TOKENS, 0, PROMPT)
+    decode_t = time_flash(rng, "rag_last_decode", RAG_REQUESTS, 1,
+                          PROMPT + DECODE_TOKENS, PROMPT + DECODE_TOKENS - 1,
+                          PROMPT + DECODE_TOKENS)
 
     ds, store, queries = build_store(200_000, 64, 256, pred=True)
     launches_filtered, _ = drive(store, queries, ds.vectors,
                                  "filtered_two_word_pass")
     del ds, store, queries
 
-    entry = {
+    l2_entry = {
         "name": "l2_topk", "route": "cuda",
         "source": "src/repro_torch/kernels/l2_topk/csrc/l2_topk.cu",
         "replaces": "src/repro/kernels/l2_topk/kernel.py:119",
@@ -465,11 +837,31 @@ def main() -> int:
                  % node_t["rows"],
         "packed_shard": shard_t,
         "launches_filtered_pass": launches_filtered,
+        "launches_rag_run": rag["l2_topk_launches"],
         "library_note": "no single PyTorch call computes an authorized, "
                         "bounded top-k",
     }
+    flash_entry = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:79",
+        "launches": rag["flash_launches"],
+        "max_abs_err": max(flash_worst, prefill_t["max_abs_err"],
+                           decode_t["max_abs_err"]),
+        "ms": prefill_t["ms"], "plain_ms": prefill_t["plain_ms"],
+        "call_ms": prefill_t["call_ms"],
+        "bound_ms": prefill_t["bound_ms"], "bound_by": prefill_t["bound_by"],
+        "library_ms": prefill_t["library_ms"],
+        "shape": "RAG prefill: B=16, Sq=1001 into a 1033-position cache, "
+                 "15/5 heads, hd=64, bf16, q_offset=0, kv_len=1001",
+        "decode": decode_t,
+        "f32_model_max_abs_err": f32_err,
+        "library_note": "torch.nn.functional.scaled_dot_product_attention "
+                        "with the same boolean mask and enable_gqa",
+    }
     emit("done", seconds=time.perf_counter() - t_start)
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(json.dumps({"kernels": [l2_entry, flash_entry]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

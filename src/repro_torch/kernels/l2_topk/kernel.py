@@ -1,31 +1,20 @@
-"""Build, load and launch the Hopper ``l2_topk`` kernel (csrc/l2_topk.cu).
+"""Load and launch the Hopper ``l2_topk`` kernel (csrc/l2_topk.cu).
 
-The CUDA source is compiled with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface under ``build/kernels/`` at the repository
-root, the first time a CUDA tensor reaches the kernel.  The library's name
-carries a hash of the sources and flags, so an edit rebuilds it.  It is
-loaded with ``ctypes``: every pointer and the stream pass as ``c_void_p``,
-every int as ``c_int``.  Nothing here runs at import time, so the CPU tests
-import the module on a machine without ``nvcc``.
+``LIBRARY`` builds the CUDA source with ``nvcc`` for ``sm_90a`` into
+``build/kernels/`` the first time a CUDA tensor reaches the kernel, and
+loads it with ``ctypes`` (see ``kernels/_build.py``).  Nothing here runs at
+import time, so the CPU tests import the module on a machine without
+``nvcc``.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("l2_topk.cu",)
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from .._build import CudaLibrary
 
 # Limits of csrc/l2_topk.cu (its BQ / TN / MAX_SPLITS / MAX_W / MAX_P / KMAX).
 QUERY_TILE = 16
@@ -36,67 +25,18 @@ MAX_PRED_WORDS = 4
 MAX_K = 128
 CTAS_PER_SM = 4          # split target: this many CTAs per SM
 
-_lib: Optional[ctypes.CDLL] = None
-_lock = threading.Lock()
-build_log = ""           # nvcc's output (ptxas register/spill report)
+
+def _declare(lib: ctypes.CDLL) -> None:
+    lib.l2_topk_launch.argtypes = ([ctypes.c_void_p] * 9
+                                   + [ctypes.c_int] * 8
+                                   + [ctypes.c_void_p] * 5)
+    lib.l2_topk_launch.restype = ctypes.c_int
+    lib.l2_topk_error_string.argtypes = [ctypes.c_int]
+    lib.l2_topk_error_string.restype = ctypes.c_char_p
 
 
-def _nvcc() -> str:
-    nvcc = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if nvcc.exists():
-        return str(nvcc)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the l2_topk kernel is built from "
-                           "csrc/ with the CUDA toolkit's nvcc")
-    return found
-
-
-def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update((CSRC / name).read_bytes())
-    return BUILD_DIR / f"libl2_topk_{h.hexdigest()[:16]}.so"
-
-
-def build() -> Path:
-    """Compile the sources unless this exact build exists; returns its path.
-
-    The library is written under a temporary name and renamed into place,
-    so concurrent builders never load a half-written file."""
-    global build_log
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{build_log}")
-    os.replace(tmp, out)
-    return out
-
-
-def load() -> ctypes.CDLL:
-    """The loaded library, built first if needed."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            lib.l2_topk_launch.argtypes = ([ctypes.c_void_p] * 9
-                                           + [ctypes.c_int] * 8
-                                           + [ctypes.c_void_p] * 5)
-            lib.l2_topk_launch.restype = ctypes.c_int
-            lib.l2_topk_error_string.argtypes = [ctypes.c_int]
-            lib.l2_topk_error_string.restype = ctypes.c_char_p
-            _lib = lib
-    return _lib
+LIBRARY = CudaLibrary("l2_topk", Path(__file__).resolve().parent / "csrc",
+                      ("l2_topk.cu",), _declare)
 
 
 def split_rows(b: int, n: int, n_sms: int) -> Tuple[int, int]:
@@ -171,7 +111,7 @@ def l2_topk_cuda(queries: torch.Tensor, db: torch.Tensor,
         raise ValueError(f"k={k}: the kernel takes 1..{MAX_K}")
     if b < 1 or n < 1 or d < 1 or n > 2 ** 31 - 2 ** 24:
         raise ValueError(f"unsupported sizes B={b} N={n} d={d}")
-    lib = load()
+    lib = LIBRARY.load()
     n_sms = torch.cuda.get_device_properties(device).multi_processor_count
     s, chunk = split_rows(b, n, n_sms)
     part_d = torch.empty((b, s, k), dtype=torch.float32, device=device)

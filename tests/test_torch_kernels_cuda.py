@@ -1,6 +1,7 @@
-"""Card-only tests of the port: the Hopper ``l2_topk`` kernel against its
-plain PyTorch version, and a small store searched on the card against the
-same store on the CPU.
+"""Card-only tests of the port: the Hopper ``l2_topk`` and flash attention
+kernels against their plain PyTorch versions, a small store searched on the
+card against the same store on the CPU, and the RAG serve path launching
+the attention kernel in every layer of prefill and decode.
 
 The kernel has no CPU mode, so every test here carries the ``cuda`` marker
 and skips without a card.  The file imports no JAX, so it runs on a machine
@@ -18,7 +19,10 @@ from repro_torch.core import (HNSWCostModel, Query, build_effveda,
                               build_vector_storage)
 from repro_torch.core.metrics import norm_scale, topk_agreement
 from repro_torch.data.pipeline import make_retrieval_dataset
+from repro_torch.kernels.flash_attention import flash_attention_ref
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.l2_topk import l2_topk_ref, ops
+from repro_torch.launch.serve import build_demo_server
 
 pytestmark = pytest.mark.cuda
 
@@ -102,3 +106,84 @@ def test_store_on_the_card_matches_store_on_the_cpu(card):
             np.array([a.dists + pad[0]]), np.array([a.ids + pad[1]]),
             norm_scale(q.vector[None], ds.vectors))
         assert len(a) == len(b) and res["ok"], res
+
+
+# (B, Hq, Hkv, Sq, Sk, hd, causal, q_offset, kv_len)
+FLASH_CASES = [
+    (2, 4, 2, 128, 128, 32, True, 0, 128),
+    (1, 2, 2, 100, 100, 64, True, 0, 100),
+    (1, 4, 1, 1, 256, 32, False, 255, 200),
+    (2, 2, 2, 64, 192, 16, True, 128, 192),
+    (1, 8, 8, 256, 256, 128, True, 0, 256),
+    (1, 3, 1, 37, 75, 20, True, 38, 75),
+    (1, 3, 1, 33, 41, 64, True, 0, 33),       # prefill into a longer cache
+    (2, 6, 2, 20, 80, 16, True, 30, 50),      # a chunk at an offset
+    (2, 15, 5, 1, 1033, 64, True, 1020, 1021),  # decode, SmolLM heads
+    (2, 15, 5, 1, 8, 64, True, 0, 0),         # nothing valid: zeros
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_version(card, case, dtype):
+    """f32: rtol 2e-4, atol 2e-5 (the reference's kernel test tolerance;
+    both sum in f32 in another order).  bf16: the same bf16 inputs on both
+    sides, f32 math in both, so the same tolerance holds."""
+    B, Hq, Hkv, Sq, Sk, hd, causal, off, kv_len = case
+    rng = np.random.default_rng(41)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(card, dtype)
+        for shape in ((B, Sq, Hq, hd), (B, Sk, Hkv, hd), (B, Sk, Hkv, hd)))
+    before = flash_ops.launches
+    out = flash_ops.flash_attention(q, k, v, causal=causal, q_offset=off,
+                                    kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert flash_ops.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (B, Sq, Hq, hd)
+    ref = flash_attention_ref(q, k, v, causal=causal, q_offset=off,
+                              kv_len=kv_len)
+    torch.testing.assert_close(out, ref, rtol=2e-4, atol=2e-5)
+
+
+def test_flash_kernel_reads_a_cache_slab_in_place(card):
+    """Layer i's slab of an (L, B, Smax, Hkv, hd) cache, and q as a strided
+    view: no copy is needed and the answer is the contiguous one."""
+    rng = np.random.default_rng(42)
+    cache = torch.from_numpy(rng.standard_normal((3, 2, 50, 5, 64)).astype(
+        np.float32)).to(card)
+    qfull = torch.from_numpy(rng.standard_normal((2, 9, 30, 64)).astype(
+        np.float32)).to(card)
+    q = qfull[:, :, ::2]                     # (2, 9, 15, 64), head stride 128
+    k, v = cache[1], cache[2]
+    out = flash_ops.flash_attention(q, k, v, causal=True, q_offset=20,
+                                    kv_len=29)
+    ref = flash_attention_ref(q.contiguous(), k, v, causal=True,
+                              q_offset=20, kv_len=29)
+    torch.testing.assert_close(out, ref, rtol=2e-4, atol=2e-5)
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(card):
+    q = torch.zeros((1, 2, 4, 16), device=card)
+    kv = torch.zeros((1, 8, 2, 16), device=card)
+    with pytest.raises(TypeError):           # mixed dtypes
+        flash_ops.flash_attention(q, kv.bfloat16(), kv.bfloat16(),
+                                  causal=True, q_offset=0, kv_len=2)
+    with pytest.raises(ValueError):          # head dim above 128
+        big = torch.zeros((1, 2, 2, 160), device=card)
+        flash_ops.flash_attention(big, big, big, causal=True, q_offset=0,
+                                  kv_len=2)
+    with pytest.raises(ValueError):          # k left on the CPU
+        flash_ops.flash_attention(q, kv.cpu(), kv, causal=True, q_offset=0,
+                                  kv_len=2)
+
+
+def test_serve_batch_launches_attention_in_every_layer(card):
+    server, ds = build_demo_server(n_vectors=1500, dim=16, n_roles=6)
+    ops.launches = flash_ops.launches = 0
+    out = server.serve_batch(ds.queries[:4], ds.query_roles[:4], k=3,
+                             decode_tokens=5)
+    assert flash_ops.launches == server.cfg.n_layers * (1 + 5)
+    assert ops.launches > 0
+    assert out["tokens"].shape == (4, 5)
+    for r, pids in zip(ds.query_roles[:4], out["retrieved"]):
+        assert ds.policy.authorized_mask(int(r))[pids].all()
